@@ -1,7 +1,7 @@
-"""game_engine_tpu — a TPU-native batched game-simulation framework.
+"""game_engine_tpu — a batched game-simulation framework for accelerators.
 
 Re-implements the capabilities of the reference "Full-Stack AI Game Engine"
-(games described in a YAML DSL; see /root/reference SURVEY.md) as a compiled,
+(games described in a YAML DSL; see SURVEY.md) as a compiled,
 pure-functional, jittable state-transition FSM over a struct-of-arrays room
 state, batched with vmap/pjit over thousands of rooms per chip.
 

@@ -1,17 +1,15 @@
 """Generic effect-IR interpreter for the jitted executors (P20).
 
-One evaluator serves both jax layouts — core/step.py's (rooms, players)
-batch and core/pallas_rollout.py's (players, lanes) VMEM tiles — through a
-small ops adapter that each executor implements next to its layout code.
+The evaluator reaches core/step.py's (rooms, players) batch layout through
+a small ops adapter (step._EffectOps) kept next to that layout code.
 The expression DAG is walked in pool order (children strictly before
 parents), so evaluation is a single pass appending one traced value per
 node; XLA dead-code-eliminates anything a statement never consumes.
 
-Mosaic discipline (the Pallas kernel compiles this too): every stored value
-is int32; booleans exist only transiently as comparison masks feeding
-`jnp.where` selects with typed int32 scalar branches.
+Every stored value is int32; booleans exist only transiently as comparison
+masks feeding `jnp.where` selects with typed int32 scalar branches.
 
-The ops protocol (see step._EffectOps / pallas's adapter):
+The ops protocol (see step._EffectOps):
   snapshot()                 capture the read-state for the next block
   field(bank, slot) -> i32   FXB_BOOL / FXB_NUM / FXB_STR bank read
   seat() nplayers() choice() chosein(lo, hi) alive() present_i() pred(i)
@@ -29,11 +27,8 @@ import jax.numpy as jnp
 from game_engine_tpu.gamespec import effects as FX
 
 def _nz(x):
-    """nonzero -> int32 0/1 (Mosaic-safe: typed scalar select branches).
-
-    The int32 scalars are created at trace time INSIDE the caller — module
-    level constants would be captured by the Pallas kernel, which Mosaic
-    rejects ("captures constants ... pass them as inputs")."""
+    """nonzero -> int32 0/1 (typed int32 scalar select branches, created
+    at trace time inside the caller)."""
     return jnp.where(x != 0, jnp.int32(1), jnp.int32(0))
 
 
@@ -49,9 +44,8 @@ def static_ranges(nodes, P: int) -> list:
     and choice reads are unknown (full int32). Feeds the packed
     single-reduce argbest emission (ops.argbest_ranged): a plurality's
     key (`incoming(1, choice, voter)` ∈ [0, P]) packs with the seat
-    tie-break into ONE reduce, replacing the 3-reduce generic argbest —
-    the dominant cost of the werewolf night/vote programs
-    (utils/ab_ireffects.py nokill decomposition, docs/PERF.md round 5).
+    tie-break into ONE reduce, replacing the 3-reduce generic argbest in
+    the werewolf night/vote programs.
     Overflowing bounds widen to full range, so packing is never tried
     where it could wrap."""
     out: list = []
@@ -135,8 +129,8 @@ def _eval_node(kind: int, p0: int, p1: int, p2: int, vals: list, ops,
         return ops.pred(p0)
     # scalar ops delegate to the adapter when it defines them (step.py's
     # bool-native versions dodge the int32 select chains that defeat XLA's
-    # predicate fusion); the defaults below keep the Mosaic-safe int32
-    # discipline the Pallas adapter relies on
+    # predicate fusion); the defaults below keep the plain int32
+    # select discipline
     if kind == FX.NK_BIN:
         if hasattr(ops, "bin"):
             return ops.bin(p0, vals[p1], vals[p2])
@@ -283,10 +277,9 @@ def grouped_stmt_order(stmts, reveal_bool_slots, alive_slot):
     they WRITE, so any interleaving that keeps same-slot (transitively:
     same union-find component) statements in declared order is
     bit-identical. Groups are emitted in first-appearance order. This is
-    VERDICT r3 #2's statement-reordering lever — traced-op emission order
-    is XLA's initial HLO schedule, so packing each slot's select chain
-    contiguously shortens the chains' live ranges as the scheduler first
-    sees them. A/B: utils/ab_writes.py.
+    the statement-reordering lever — traced-op emission order is XLA's
+    initial HLO schedule, so packing each slot's select chain contiguously
+    shortens the chains' live ranges as the scheduler first sees them.
 
     ``reveal_bool_slots`` is one tuple shared by every statement (the
     per-block case) or a per-statement list (the merged cross-program

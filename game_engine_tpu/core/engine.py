@@ -78,8 +78,7 @@ def make_rollout(lowered: Lowered, num_steps: int, auto_reset: bool = True):
             actions = scripted_actions(lowered, st)
             new = step(st, actions)
             # completions this step (under auto-reset st.done is always
-            # False here, so this equals sum(new.done) — bit-compatible
-            # with the pallas kernel's counter)
+            # False here, so this equals sum(new.done))
             episodes = jnp.sum((new.done & ~st.done).astype(jnp.int32))
             st = new
             if auto_reset:

@@ -11,7 +11,7 @@ agent/game_agent_v2.py:468-1241) — with branch-free data flow:
 Everything is elementwise ops and tiny reductions over the player axis,
 batched over rooms on axis 0. No lax.switch / lax.cond: per-phase structure
 is folded at trace time (compute-all, select-by-phase), which XLA fuses into
-a handful of VPU kernels. Semantics are pinned P1..P15
+a handful of elementwise kernels. Semantics are pinned P1..P15
 (gamespec/mechanics.py) and must stay bit-identical to oracle/interp.py.
 """
 
@@ -39,29 +39,27 @@ from game_engine_tpu.gamespec.tables import (
 
 _U32 = jnp.uint32
 
-# Effect-IR write-combining (docs/PERF.md round 4). When True, _EffectOps
+# Effect-IR write-combining. When True, _EffectOps
 # accumulates each statement's bank write into a per-slot effective column
 # and flushes ONE update per touched slot at block end, instead of a
 # dynamic-update-slice per statement — shorter live ranges for the banks
 # and one select chain per slot for XLA to fuse. Bit-identical by
 # construction (the pending column IS the statement-ordered select chain);
-# pinned by the golden fixture. Toggled by utils/ab_writes.py for A/B.
+# pinned by the golden fixture.
 DEFERRED_WRITES = True
 # With deferred writes on, emit flush updates in ascending slot order
 # instead of first-touch order — a pure HLO-emission-order lever for the
-# TPU scheduler (VERDICT r3's untried statement-reordering theory reduced
-# to its only observable residue once writes are combined). Bit-identical
-# by construction: the per-slot columns are unchanged, only the order the
-# independent .at[slot].set updates are emitted in changes. Toggled by
-# utils/ab_writes.py for A/B.
+# compiler's scheduler (statement reordering reduced to its only observable
+# residue once writes are combined). Bit-identical by construction: the
+# per-slot columns are unchanged, only the order the independent
+# .at[slot].set updates are emitted in changes. Off: no gain measured yet.
 SORTED_FLUSH = False
 # Reorder each block's statements so all writes to one slot (one union-find
 # component of write targets) are emitted contiguously, preserving declared
-# order within a component — the full statement-reordering lever from
-# VERDICT r3 #2. Bit-identical by construction: block reads come from the
-# snapshot, so statements only interfere through the slots they write
+# order within a component — the full statement-reordering lever.
+# Bit-identical by construction: block reads come from the snapshot, so
+# statements only interfere through the slots they write
 # (core/effects_exec.grouped_stmt_order; pinned by test_effects_grouping).
-# Toggled by utils/ab_writes.py for A/B.
 GROUP_STMTS = False
 
 
@@ -149,10 +147,11 @@ def _alive(lowered: Lowered, state: GameState) -> jax.Array:
     return state.present
 
 
-# Per-element gathers along the tiny player axis lower to very slow code on
-# TPU (dynamic-index gather over a 128-padded minor dim). P is static and
-# small, so all player indexing is done as one-hot contractions instead —
-# pure elementwise + reduce, which the VPU eats for free.
+# All indexing along the tiny player axis is done as one-hot contractions
+# instead of per-element gathers: P is static and small, and elementwise +
+# reduce fuses with its neighbours where a dynamic-index gather may not.
+# Whether a gather is cheaper on the GPU at P <= 12 is an open measurement
+# (ROADMAP); both forms are bit-identical.
 
 
 def _player_onehot(idx0: jax.Array, P: int) -> jax.Array:
@@ -180,8 +179,8 @@ def _select_slot(bank: jax.Array, slot: jax.Array) -> jax.Array:
 def _table_select(table: np.ndarray, idx: jax.Array) -> jax.Array:
     """Static-table row lookup by per-room index, as unrolled selects.
 
-    TPU lowers dynamic gathers from tiny tables into slow custom calls;
-    grouping rows by distinct value keeps this to a handful of selects.
+    Avoids a dynamic gather from a tiny table; grouping rows by distinct
+    value keeps this to a handful of selects.
     table: (N,) scalars or (N, K) rows; idx: (B,) -> (B,) or (B, K)."""
     table = np.asarray(table)
     if table.ndim == 1:
@@ -238,10 +237,8 @@ class _EffectOps:
 
     Dtype discipline: truthy intermediates stay jnp.bool_ (comparisons,
     logic, masks) and numerics int32, converting only at arithmetic /
-    write boundaries — XLA fuses the bool predicate chains for free,
-    where the shared evaluator's int32-select defaults cost one VPU
-    select per node (measured +17us/step on the werewolf night/vote
-    programs, utils/ab_ireffects.py)."""
+    write boundaries — XLA fuses the bool predicate chains, where the
+    shared evaluator's int32-select defaults cost one select per node."""
 
     def __init__(self, lw: Lowered, st: GameState):
         self.lw = lw
@@ -416,8 +413,7 @@ class _EffectOps:
         # exact for ALL int32 keys: the win mask is re-ANDed with m so a
         # legitimate key equal to the sentinel can neither fake an empty
         # mask nor let a masked-out seat win (a 2-reduce sentinel-only
-        # variant measured ZERO gain on chip — docs/PERF.md — and
-        # silently narrowed the key domain)
+        # variant silently narrowed the key domain)
         m = self._b(self._bp(mask)) & self.st.present
         key = self._bp(self._i(key))
         any_m = jnp.any(m, axis=1, keepdims=True)
@@ -438,9 +434,9 @@ class _EffectOps:
         ± seat, so ONE masked max/min yields both the winning key and the
         P6 lowest-seat tie-break. Replaces the generic 3-reduce argbest
         on every analyzer plurality (vote/night kill targets: key =
-        incoming(1, choice, voter) ∈ [0, P]) — the dominant per-step cost
-        of the werewolf IR programs (docs/PERF.md round 5). Bit-identical
-        to argbest by construction; the golden fixture enforces it."""
+        incoming(1, choice, voter) ∈ [0, P]), which the werewolf IR
+        programs run every step. Bit-identical to argbest by
+        construction; the golden fixture enforces it."""
         lo, hi = key_range
         P = self.P
         span = hi - lo
@@ -467,9 +463,8 @@ class _EffectOps:
         retired LRoleAssign kernel bit-for-bit; a nonzero salt re-deals.
 
         Stable rank via O(P^2) comparisons — equals argsort-of-stable-
-        argsort but stays elementwise (TPU sorts cost ~50us/step even
-        when masked out); identical math in the Pallas kernel, the C++
-        sim and the oracle."""
+        argsort but stays elementwise (a sort is paid every step, even
+        when masked out); identical math in the C++ sim and the oracle."""
         st = self.st
         B, P = self.B, self.P
         pids = jnp.arange(P, dtype=jnp.uint32)[None, :]
@@ -766,8 +761,8 @@ def make_step(lowered: Lowered):
         pd_slot = _table_select(lowered.rec_pdict_slot, ph)  # (B,)
         pd_src = _table_select(lowered.rec_pdict_src, ph)
         NPD = state.pdict.shape[2]
-        # target's value of the per-room source slot (unrolled selects —
-        # dynamic player-axis gathers are pathologically slow on TPU)
+        # target's value of the per-room source slot (unrolled selects,
+        # not a dynamic player-axis gather: invariant 3)
         src_bank = _select_slot(state.strs, pd_src)  # (B, P)
         src_val = _gather_by_choice(src_bank, c)  # (B, P) target's code
         # translate source string codes into the pdict field's value vocab

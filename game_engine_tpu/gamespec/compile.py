@@ -3,7 +3,7 @@
 CompiledGame is consumed by two executors with pinned-identical semantics:
   * oracle/interp.py  — plain-Python per-room interpreter (the oracle)
   * gamespec/tables.py + core/step.py — dense-table lowering for the
-    jitted, batched TPU engine
+    jitted, batched device engine
 
 Golden-parity tests assert bit-identical phase/vote/win traces between the
 two (SURVEY.md §4 / BASELINE.json north star).

@@ -13,8 +13,8 @@ that core/step.py unrolls at trace time into one straight-line XLA program:
     applied masked-by-phase (compute-all-select, no lax.switch fan-out).
 
 This keeps the hot step branch-free and fully fusible: the whole FSM is
-elementwise ops + tiny reductions over the player axis, which is exactly
-what the TPU VPU wants for a (rooms, players) batch.
+elementwise ops + tiny reductions over the player axis over a (rooms,
+players) batch.
 """
 
 from __future__ import annotations

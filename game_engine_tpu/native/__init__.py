@@ -1,5 +1,5 @@
 """Native (C++) runtime components: the table-driven room simulator."""
 
-from game_engine_tpu.native.lib import CppGame, CppRoom, available
+from game_engine_tpu.native.lib import CppGame, CppRoom, available, state_rows
 
-__all__ = ["CppGame", "CppRoom", "available"]
+__all__ = ["CppGame", "CppRoom", "available", "state_rows"]

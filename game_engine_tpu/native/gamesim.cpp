@@ -859,8 +859,12 @@ void gs_room_write(void* rh, const int32_t* in) {
   for (int p = 0; p < g.P; ++p) r->choice_phase[p] = in[k++];
 }
 
-// batched scripted self-play for CPU throughput baseline; returns episodes.
-int64_t gs_selfplay(void* gh, int rooms, int n_players, uint32_t seed0, int steps) {
+// batched scripted self-play (auto-reset with the engine's seed bump);
+// returns episodes. When out_states is non-null, each room's final
+// gs_room_read image followed by its seed is written there: rooms rows of
+// gs_state_size + 1 int32 (the differential check against the XLA rollout).
+int64_t gs_selfplay(void* gh, int rooms, int n_players, uint32_t seed0, int steps,
+                    int32_t* out_states) {
   auto* g = (Game*)gh;
   std::vector<Room> rs(rooms);
   for (int b = 0; b < rooms; ++b) room_init(*g, rs[b], n_players, seed0 + (uint32_t)b);
@@ -875,6 +879,13 @@ int64_t gs_selfplay(void* gh, int rooms, int n_players, uint32_t seed0, int step
         episodes++;
         room_init(*g, r, n_players, splitmix32(r.seed ^ 0xDECAF000u));
       }
+    }
+  }
+  if (out_states) {
+    const int64_t row = gs_state_size(gh) + 1;
+    for (int b = 0; b < rooms; ++b) {
+      gs_room_read(&rs[b], out_states + b * row);
+      out_states[b * row + row - 1] = (int32_t)rs[b].seed;
     }
   }
   return episodes;

@@ -54,6 +54,7 @@ def _build() -> Optional[ctypes.CDLL]:
     lib.gs_selfplay.restype = ctypes.c_int64
     lib.gs_selfplay.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int32),
     ]
     lib.gs_room_search.restype = ctypes.c_int32
     lib.gs_room_search.argtypes = [
@@ -105,7 +106,17 @@ class CppGame:
 
     def selfplay(self, rooms: int, n_players: int, seed0: int, steps: int) -> int:
         """Scripted self-play over many rooms; returns completed episodes."""
-        return int(_lib.gs_selfplay(self._h, rooms, n_players, seed0, steps))
+        return int(_lib.gs_selfplay(self._h, rooms, n_players, seed0, steps, None))
+
+    def selfplay_states(self, rooms: int, n_players: int, seed0: int,
+                        steps: int) -> tuple[int, np.ndarray]:
+        """selfplay() that also returns every room's final state: an int32
+        (rooms, state_size + 1) array of CppRoom.read() images, each row
+        ending in the room's seed (compare with `state_rows`)."""
+        out = np.zeros((rooms, self.state_size + 1), np.int32)
+        eps = _lib.gs_selfplay(self._h, rooms, n_players, seed0, steps,
+                               out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+        return int(eps), out
 
 
 class CppRoom:
@@ -220,3 +231,19 @@ class CppRoom:
         out["choice"] = buf[k : k + P]; k += P
         out["choice_phase"] = buf[k : k + P]
         return out
+
+
+def state_rows(state) -> np.ndarray:
+    """A batched GameState as the int32 (rooms, state_size + 1) layout of
+    `CppGame.selfplay_states`: the gs_room_read image, then the seed."""
+    def flat(x):
+        x = np.asarray(x)
+        return x.reshape(x.shape[0], -1).astype(np.int64)
+
+    cols = [flat(state.phase), flat(state.done), flat(state.winner),
+            flat(state.prev_phase), flat(state.t), flat(state.bools),
+            flat(state.nums), flat(state.strs), flat(state.pdict),
+            flat(state.odict), flat(state.acted), flat(state.choice),
+            flat(state.choice_phase), flat(state.seed)]
+    # uint32 seeds wrap into int32 exactly as the C side stores them
+    return np.concatenate(cols, axis=1).astype(np.uint32).view(np.int32)

@@ -1,13 +1,14 @@
 """Mesh construction and sharding rules.
 
 The reference's only parallelism is one LangGraph thread per room over HTTP
-(reference: src/app/api/rooms/create/route.ts:16-26, SURVEY.md §2.5). The
-TPU-native equivalent: rooms are the leading axis of every state array and
-shard over the 'data' mesh axis (environment data-parallelism); the learned
-policy's hidden layers shard over 'model' (tensor parallelism). GSPMD/pjit
-inserts the ICI collectives (gradient psum over 'data', activation
-all-gather/reduce-scatter over 'model'); across hosts the same program runs
-under jax.distributed with DCN between slices.
+(reference: src/app/api/rooms/create/route.ts:16-26, SURVEY.md §2.5). Here
+rooms are the leading axis of every state array and shard over the 'data'
+mesh axis (environment data-parallelism); the learned policy's hidden layers
+shard over 'model' (tensor parallelism). GSPMD/pjit inserts the collectives
+(gradient psum over 'data', activation all-gather/reduce-scatter over
+'model'), which XLA hands to NCCL on GPUs; across hosts the same program
+runs under jax.distributed. The cards of one host are joined all to all,
+so the mesh follows the algorithm alone.
 """
 
 from __future__ import annotations
@@ -74,12 +75,12 @@ def initialize_multihost(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> int:
-    """Multi-host (DCN) initialization for slices larger than one host.
+    """Multi-host initialization for meshes larger than one host.
 
     Call once per process before any jax op; afterwards jax.devices() spans
-    the whole slice and the same pjit programs shard over ICI within hosts
-    and DCN across them (SURVEY.md §2.5 'distributed communication backend'
-    row). On single-host TPU or CPU this is a no-op. Returns process count.
+    every host and the same pjit programs shard within and across hosts
+    (SURVEY.md §2.5 'distributed communication backend' row). With one
+    process this is a no-op. Returns process count.
     """
     if num_processes is None or num_processes <= 1:
         return 1

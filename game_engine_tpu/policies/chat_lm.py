@@ -1,4 +1,4 @@
-"""Tiny on-TPU chat language model: a byte-level causal transformer that
+"""Tiny on-device chat language model: a byte-level causal transformer that
 roleplays the in-game chat bot.
 
 The reference's ChatBotNode is a gpt-4.1-mini call per chat message
@@ -9,7 +9,7 @@ This module is the LEARNED tier of that seam: a ~1M-param transformer
 small learn to COPY roster names from its context instead of
 hallucinating name-shaped strings) trained by self-distillation — the
 template composer plays teacher over thousands of simulated rooms with
-unique-per-room synthetic handles — and served on the TPU behind
+unique-per-room synthetic handles — and served on the device behind
 ``ChatRoom(lm_hook=...)`` (``--chat-lm`` on the server CLI). Conditioning is
 the exact ``server.chat.lm_context`` string, so serving inputs match the
 training distribution; decoding is greedy and therefore deterministic
@@ -161,9 +161,9 @@ def forward(params: dict[str, Any], tokens: jax.Array, cfg: LMConfig) -> jax.Arr
     B, L = tokens.shape
     D, nh = cfg.d_model, cfg.n_heads
     hd = D // nh
-    # embedding via one-hot matmul: per-element gathers over a tiny vocab
-    # axis hit the same TPU custom-call cliff as the engine's player-axis
-    # gathers (CLAUDE.md invariant 3); (B,L,V)x(V,D) rides the MXU instead
+    # embedding via one-hot matmul instead of a per-element gather over the
+    # tiny vocab axis (the engine's no-gather rule, CLAUDE.md invariant 3):
+    # (B,L,V)x(V,D) is one matrix product
     x = _dot(jax.nn.one_hot(tokens, VOCAB, dtype=jnp.bfloat16), params["tok"])
     x = x + params["pos"][None, :L]
     causal = jnp.tril(jnp.ones((L, L), bool))
@@ -683,7 +683,7 @@ def make_lm_hook(ckpt_path: str, sample_temp: float = 0.0,
     template composer. State-reporting kinds always decode greedy.
 
     Warms the jitted forward with one dummy decode so the first real chat
-    message never pays the TPU compile (15-190 s) inside the GameHost
+    message never pays the compile inside the GameHost
     lock, where it would stall every room's requests."""
     params, cfg = load(ckpt_path)
     greedy_reply(params, cfg, "K=greeting|P=warmup|B=1|N=P|S=V|A=1|D=|V=0"

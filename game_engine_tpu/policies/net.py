@@ -2,7 +2,7 @@
 
 Replaces the scripted policy for PPO/league self-play (BASELINE.json configs
 4-5). The reference has no learned policies — bots are LLM calls (reference:
-agent/game_agent_v2.py:468-617); this is the TPU-native substitute: a shared
+agent/game_agent_v2.py:468-617); this is the batched on-device substitute: a shared
 MLP trunk with tensor-parallel-shardable hidden layers, producing per-player
 action logits over the unified choice space {1..P targets / options} plus a
 value head.
@@ -270,9 +270,8 @@ class NetConfig:
     # seats exchange information (who is voting whom, who is protected)
     # instead of pooling independently; all param shapes stay room-size
     # independent. Default is ONE head: with P<=12 seats, splitting the
-    # embedding into tiny per-head dims (hd=8 at 4 heads) lowers to
-    # VPU-bound slivers — single-head keeps the full width on the MXU,
-    # measured 2.6x faster at identical learning quality (docs/PERF.md).
+    # embedding into tiny per-head dims (hd=8 at 4 heads) gives the matrix
+    # units slivers; single-head keeps the full width in one product.
     arch: str = "mlp"
     attn_heads: int = 1
 
@@ -366,8 +365,8 @@ def _trunk_and_heads(params, x, n_targets: int, ptr=None):
 
 def apply_net(params: dict[str, Any], obs: jax.Array, cfg: NetConfig,
               lowered: Lowered | None = None):
-    """obs (..., F) -> (logits (..., A), value (...,)). bfloat16 matmuls on
-    the MXU with float32 accumulation (preferred_element_type)."""
+    """obs (..., F) -> (logits (..., A), value (...,)). bfloat16 matmuls
+    with float32 accumulation (preferred_element_type)."""
     if cfg.arch not in ("deepsets", "attn"):
         return _trunk_and_heads(params, obs.astype(jnp.bfloat16),
                                 obs.shape[-1])
@@ -385,8 +384,7 @@ def apply_net(params: dict[str, Any], obs: jax.Array, cfg: NetConfig,
         # one residual multi-head self-attention block over the seat axis:
         # seats attend to each other before pooling, so the embedding a
         # pointer scores already reflects room-wide relations. P is tiny
-        # (<=12) so the (P, P) attention is a fused MXU epilogue, not a
-        # bandwidth concern.
+        # (<=12) so the (P, P) attention is small next to the dots.
         hp = phi.shape[-1]
         nh = cfg.attn_heads
         hd = hp // nh
@@ -438,25 +436,21 @@ def legal_action_mask(lowered: Lowered, state: GameState) -> jax.Array:
 
 
 def sample_actions(lowered: Lowered, params, state: GameState, key, cfg: NetConfig,
-                   obs=None, apply_fn=None):
+                   obs=None):
     """Sample per-player choices.
 
     Returns (actions (B,P) 1-based, logp (B,P), value (B,P),
     legal-action mask (B,P,A)). Pass a precomputed ``obs`` to avoid
-    rebuilding the (expensive) masked observation tensor; ``apply_fn``
-    overrides the net forward (e.g. the fused Pallas kernel)."""
+    rebuilding the (expensive) masked observation tensor."""
     if obs is None:
         obs = observe(lowered, state)
-    if apply_fn is None:
-        logits, value = apply_net(params, obs, cfg, lowered)
-    else:
-        logits, value = apply_fn(params, obs)
+    logits, value = apply_net(params, obs, cfg, lowered)
     mask = legal_action_mask(lowered, state)
     neg = jnp.float32(-1e9)
     logits = jnp.where(mask, logits, neg)
     a = jax.random.categorical(key, logits, axis=-1)  # (B, P) in [0, A)
-    # one-hot contraction instead of take_along_axis (tiny-axis gathers are
-    # a TPU perf cliff; see ppo_loss)
+    # one-hot contraction instead of take_along_axis (the no-gather rule;
+    # see ppo_loss)
     logp_all = jax.nn.log_softmax(logits, axis=-1)
     aoh = jax.nn.one_hot(a, logits.shape[-1], dtype=logp_all.dtype)
     logp = jnp.sum(logp_all * aoh, axis=-1)

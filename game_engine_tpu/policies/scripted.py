@@ -63,5 +63,4 @@ def oracle_policy(room, step_idx: int, seed: int) -> dict[int, int]:
 
 
 # The vectorized jax twin of oracle_policy lives in
-# game_engine_tpu.core.engine.scripted_actions (same splitmix32 stream);
-# the in-kernel twin lives in core/pallas_rollout.py.
+# game_engine_tpu.core.engine.scripted_actions (same splitmix32 stream).

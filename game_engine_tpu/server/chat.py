@@ -163,7 +163,7 @@ def lm_context(kind: str, bot: int, sender_name: str, text: str,
                grounded: Optional[dict] = None,
                persona: Optional[int] = None, extra: str = "") -> str:
     """Serialize the reply-relevant state into the compact conditioning
-    string consumed by the on-TPU chat LM (policies/chat_lm.py). The SAME
+    string consumed by the on-device chat LM (policies/chat_lm.py). The SAME
     serializer builds the self-distillation corpus, so serving inputs stay
     in-distribution. This is the seam where the reference sends the full
     game context to gpt-4.1-mini (reference: agent/game_agent_v2.py:385).
@@ -363,7 +363,7 @@ class ChatRoom:
 
     ``lm_hook(context_str) -> Optional[str]`` plugs a learned language
     model in place of the template composer (``--chat-lm`` serves the tiny
-    on-TPU transformer from policies/chat_lm.py); bot selection, dead-
+    on-device transformer from policies/chat_lm.py); bot selection, dead-
     players-silent, visibility and timestamps stay host-enforced either
     way, and a None/empty hook reply falls back to the templates."""
 

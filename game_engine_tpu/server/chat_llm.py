@@ -4,13 +4,13 @@ completion function.
 The reference's ChatBotNode sends the FULL game context to a
 temperature-sampled gpt-4.1-mini and posts whatever it says (reference:
 agent/game_agent_v2.py:351-466, agent/prompt/chatbot_system_prompt.txt).
-This framework's built-in tiers (template composer, distilled on-TPU LM)
+This framework's built-in tiers (template composer, distilled on-device LM)
 are deterministic and state-faithful but ceiling-bound by the composer's
 modes; this module is the documented integration point for open roleplay
 beyond them — bring any completion function (an API client, a local
 model, a human improviser) and it becomes the TOP tier of the responder:
 
-    external model  >  learned on-TPU LM (--chat-lm)  >  template composer
+    external model  >  learned on-device LM (--chat-lm)  >  template composer
 
 The safety invariants hold at every tier, enforced HOST-side so no model
 can break them:

@@ -1,7 +1,8 @@
 """Train the tiny chat LM by self-distillation (see policies/chat_lm.py).
 
 The template composer (server/chat.py) plays teacher over simulated oracle
-rooms; the transformer learns context -> reply next-char prediction on TPU.
+rooms; the transformer learns context -> reply next-char prediction on the
+device.
 
     python -m game_engine_tpu.train.chat_lm --steps 3000 \
         --out docs/checkpoints/chat_lm.npz

@@ -30,7 +30,6 @@ from game_engine_tpu.train.ppo import (
     Rollout,
     actor_mask,
     gae,
-    make_apply_fn,
     team_masks,
     terminal_rewards,
 )
@@ -52,7 +51,7 @@ class League:
     max_size: int = 8
     snapshot_every: int = 50
     # keep the SCRIPTED policy in the pool as a permanent weak anchor.
-    # Measured round 4 (docs/PERF.md): a snapshot-only pool converges to
+    # Measured in an earlier 600-update werewolf run: a snapshot-only pool converges to
     # uniformly-strong copies of the learner's own majority play, minority
     # rooms become hopeless, and the minority side RESIGNS (werewolf
     # learned-as-minority 0.69 -> 0.02 between u300 and u350, episodes
@@ -128,9 +127,6 @@ def make_league_train_step(lowered: Lowered, cfg: PPOConfig, tx: optax.GradientT
     this as a SECOND jitted program alongside the snapshot one).
     """
     step = make_step(lowered)
-    # same per-step forward as make_unroll: the fused Pallas net when
-    # enabled (collect measured 1.51x for attn, docs/PERF.md round-4c)
-    apply_fn = make_apply_fn(lowered, cfg) if cfg.fused_net else None
 
     def learner_controls(state: GameState) -> jax.Array:
         """(B, P): even rooms -> learner plays the minority side."""
@@ -145,12 +141,12 @@ def make_league_train_step(lowered: Lowered, cfg: PPOConfig, tx: optax.GradientT
             k, sk1, sk2 = jax.random.split(k, 3)
             obs = N.observe(lowered, st).astype(jnp.bfloat16)
             a, logp, v, legal = N.sample_actions(lowered, params, st, sk1, cfg.net,
-                                                 obs=obs, apply_fn=apply_fn)
+                                                 obs=obs)
             if scripted_opponent:
                 oa = scripted_actions(lowered, st)
             else:
                 oa, _, _, _ = N.sample_actions(lowered, opp_params, st, sk2, cfg.net,
-                                               obs=obs, apply_fn=apply_fn)
+                                               obs=obs)
             ctrl = learner_controls(st)
             am = actor_mask(lowered, st)
             actions = jnp.where(am & ctrl, a, jnp.where(am, oa, 0))
@@ -179,22 +175,14 @@ def make_league_train_step(lowered: Lowered, cfg: PPOConfig, tx: optax.GradientT
         total, metrics = ppo_loss(params, traj, adv, ret, cfg, lowered)
         return total, (metrics["v_loss"], metrics["entropy"])
 
-    from game_engine_tpu.train.ppo import make_loss_vg_fn
-
-    loss_vg = make_loss_vg_fn(lowered, cfg)
-
     def train_step(params, opp_params, opt_state, state, key):
         state, key, traj, won = unroll(params, opp_params, state, key)
         _, last_v = N.apply_net(params, N.observe(lowered, state), cfg.net, lowered)
         adv, ret = gae(traj, last_v, cfg)
         loss = v_loss = entropy = jnp.float32(0)
         for _ in range(cfg.epochs):
-            if loss_vg is not None:
-                (loss, mets), grads = loss_vg(params, traj, adv, ret)
-                v_loss, entropy = mets["v_loss"], mets["entropy"]
-            else:
-                (loss, (v_loss, entropy)), grads = jax.value_and_grad(
-                    loss_fn, has_aux=True)(params, traj, adv, ret)
+            (loss, (v_loss, entropy)), grads = jax.value_and_grad(
+                loss_fn, has_aux=True)(params, traj, adv, ret)
             updates, opt_state = tx.update(grads, opt_state, params)
             params = optax.apply_updates(params, updates)
         episodes = jnp.sum(traj.done.astype(jnp.int32))

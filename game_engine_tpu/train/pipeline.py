@@ -2,9 +2,8 @@
 PPO update by running them as two independently-dispatched device programs
 with one update of parameter staleness.
 
-Round-4 lever for the attn arch's throughput gap (VERDICT r3 #8 /
-docs/PERF.md): the sync train step serializes unroll -> GAE -> epochs in
-ONE program, so a chip alternates between the rollout's engine-step
+A lever for the attn arch's throughput: the sync train step serializes
+unroll -> GAE -> epochs in ONE program, so a chip alternates between the rollout's engine-step
 kernels and the update's gradient matmuls. Here the stages become:
 
     actor  device: traj_{k+1} = unroll(theta_k, state_k)      (stale by 1)
@@ -18,7 +17,7 @@ behavior policy's log-probs, and the first epoch's clipped ratios treat
 theta_k exactly as they treat any post-epoch params in the sync step.
 
 The honest throughput algebra for an ON-DEVICE environment (the engine
-IS a TPU program, unlike host-env RL where async hides environment
+IS a device program, unlike host-env RL where async hides environment
 latency): with rollout time r and update time u per round,
 
     2-device pipeline:        1 / max(r, u)   rounds/s
@@ -28,7 +27,7 @@ pipeline/DP = (r+u)/(2*max(r,u)) <= 1 — equality ONLY at r == u. A
 data-parallel mesh is never slower and is bit-stable (no staleness), so
 the pipeline is the right tool only when DP is unavailable (e.g. two
 heterogeneous chips, or a reserved inference chip that would otherwise
-idle). utils/ab_async.py measures both claims; docs/PERF.md records them.
+idle).
 """
 
 from __future__ import annotations
@@ -57,9 +56,6 @@ def make_pipeline(lowered: Lowered, cfg: PPOConfig,
     split on one.
     """
     unroll = make_unroll(lowered, cfg)
-    from game_engine_tpu.train.ppo import make_apply_fn
-
-    apply_fn = make_apply_fn(lowered, cfg)
 
     def collect(params, state, key):
         state, key, traj = unroll(params, state, key)
@@ -68,12 +64,8 @@ def make_pipeline(lowered: Lowered, cfg: PPOConfig,
         last_obs = N.observe(lowered, state).astype(jnp.bfloat16)
         return state, key, traj, last_obs
 
-    from game_engine_tpu.train.ppo import make_loss_vg_fn
-
-    loss_vg = make_loss_vg_fn(lowered, cfg)
-
     def update(params, opt_state, traj, last_obs):
-        _, last_v = apply_fn(params, last_obs)
+        _, last_v = N.apply_net(params, last_obs, cfg.net, lowered)
         adv, ret = gae(traj, last_v, cfg)
 
         def loss_fn(p):
@@ -82,11 +74,8 @@ def make_pipeline(lowered: Lowered, cfg: PPOConfig,
         loss = jnp.float32(0)
         metrics = {}
         for _ in range(cfg.epochs):
-            if loss_vg is not None:
-                (loss, metrics), grads = loss_vg(params, traj, adv, ret)
-            else:
-                (loss, metrics), grads = jax.value_and_grad(
-                    loss_fn, has_aux=True)(params)
+            (loss, metrics), grads = jax.value_and_grad(
+                loss_fn, has_aux=True)(params)
             updates, opt_state = tx.update(grads, opt_state, params)
             params = optax.apply_updates(params, updates)
         metrics = dict(metrics)
@@ -149,8 +138,8 @@ def run_pipelined(lowered: Lowered, cfg: PPOConfig, tx, params, opt_state,
 # the actor half of the chips runs the environment+sampling SPMD over its
 # own ('data','model') mesh while the learner half runs the PPO epochs over
 # its mesh, with trajectory/parameter resharding hops between them. This is
-# the TPU-native shape of an actor/learner service split (ICI transfers
-# instead of a replay-buffer network); the same 1/max(r,u) vs 2/(r+u)
+# the on-device shape of an actor/learner service split (device-to-device
+# transfers instead of a replay-buffer network); the same 1/max(r,u) vs 2/(r+u)
 # algebra in the module docstring decides when it beats plain DP.
 # ---------------------------------------------------------------------------
 

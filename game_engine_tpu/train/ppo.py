@@ -9,7 +9,7 @@ contributes to the value loss.
 The train step is one jitted program: unroll T env steps with the learned
 policy (lax.scan), compute GAE, one clipped-PPO update. Rooms shard over the
 'data' mesh axis, hidden layers over 'model' (see parallel/mesh.py); under
-pjit/GSPMD the gradient all-reduce and activation collectives ride ICI
+pjit/GSPMD the gradient all-reduce and activation collectives are inserted
 automatically.
 """
 
@@ -42,8 +42,7 @@ class PPOConfig:
     lr: float = 3e-4
     # timesteps recomputed per remat chunk in the deepsets/attn loss (the
     # set-encoder activations are too big to hold for the whole horizon;
-    # chunk>1 trades peak memory for fewer, larger kernels — the attn
-    # arch's loss pass is dispatch-bound at chunk=1, see docs/PERF.md)
+    # chunk>1 trades peak memory for fewer, larger kernels)
     loss_chunk: int = 1
     # remat policy for the chunked recompute: 'full' recomputes everything
     # in the backward pass (minimum memory); 'dots' saves matmul outputs
@@ -51,32 +50,11 @@ class PPOConfig:
     # re-running the encoder contractions at the cost of holding one
     # chunk's activations
     remat: str = "full"
-    # route the deepsets/attn policy net through the fused Pallas fwd+bwd
-    # kernels (policies/fused.py): one VMEM-resident pass per row block
-    # instead of the HBM-round-tripping XLA chain, param grads accumulated
-    # on-chip — no lax.map/checkpoint needed. Single-chip (or per-shard
-    # under shard_map) lever; leave off for pjit/GSPMD whole-step sharding.
-    fused_net: bool = False
-    # with fused_net: use the monolithic loss-grad kernel (one pass over
-    # the rows) instead of value_and_grad over the fwd/bwd kernel pair,
-    # which runs the forward twice. Off switch exists for A/B only.
-    fused_loss: bool = True
     net: N.NetConfig = dataclasses.field(default_factory=N.NetConfig)
 
 
 def _game_over_mech(lowered: Lowered) -> LGameOver | None:
     return lowered.game_overs[0] if lowered.game_overs else None
-
-
-def make_apply_fn(lowered: Lowered, cfg: "PPOConfig"):
-    """(params, obs) -> (logits, value): the fused Pallas net when enabled
-    and supported, else the plain XLA apply_net."""
-    if cfg.fused_net:
-        from game_engine_tpu.policies import fused as FZ
-
-        if FZ.supports(lowered, cfg.net):
-            return FZ.make_apply(lowered, cfg.net)
-    return lambda params, obs: N.apply_net(params, obs, cfg.net, lowered)
 
 
 def terminal_rewards(lowered: Lowered, state: GameState, ended: jax.Array) -> jax.Array:
@@ -87,9 +65,8 @@ def terminal_rewards(lowered: Lowered, state: GameState, ended: jax.Array) -> ja
         return jnp.zeros((B, P), jnp.float32)
     if go.mode == "team" and go.team_str_slot >= 0 and go.team_codes:
         team = state.strs[..., go.team_str_slot]
-        # unrolled select over the tiny static table — a jnp.take here is
-        # a dynamic gather in the rollout scan's hot path (invariant 3:
-        # TPU lowers tiny-table gathers to the slow kCustom kernel)
+        # unrolled select over the tiny static table, not a jnp.take: a
+        # dynamic gather in the rollout scan's hot path (invariant 3)
         from game_engine_tpu.core.step import _table_select
 
         win_code = _table_select(
@@ -137,7 +114,6 @@ class Rollout(NamedTuple):
 
 def make_unroll(lowered: Lowered, cfg: PPOConfig):
     step = make_step(lowered)
-    apply_fn = make_apply_fn(lowered, cfg) if cfg.fused_net else None
 
     def unroll(params, state: GameState, key):
         def body(carry, _):
@@ -147,7 +123,7 @@ def make_unroll(lowered: Lowered, cfg: PPOConfig):
             # rollout buffer (the dominant HBM cost at 16k+ rooms)
             obs = N.observe(lowered, st).astype(jnp.bfloat16)
             a, logp, v, legal = N.sample_actions(lowered, params, st, sk, cfg.net,
-                                                 obs=obs, apply_fn=apply_fn)
+                                                 obs=obs)
             mask = actor_mask(lowered, st)
             actions = jnp.where(mask, a, 0)
             nxt = step(st, actions)
@@ -192,12 +168,7 @@ def gae(traj: Rollout, last_value: jax.Array, cfg: PPOConfig):
 def ppo_loss(params, traj: Rollout, adv, ret, cfg: PPOConfig,
              lowered: Lowered | None = None):
     """Clipped-PPO loss shared by mirror self-play and league training."""
-    if cfg.fused_net and cfg.net.arch in ("deepsets", "attn"):
-        # fused Pallas net: the backward holds only param-grad accumulators
-        # in VMEM, so the whole (T, B, P, F) obs goes through one call — no
-        # per-timestep remat map, no checkpointing
-        logits, value = make_apply_fn(lowered, cfg)(params, traj.obs)
-    elif cfg.net.arch in ("deepsets", "attn"):
+    if cfg.net.arch in ("deepsets", "attn"):
         # chunk the recompute over T with remat inside: the set encoder's
         # (T, B, P, P, hp) phi activations would otherwise be held (or
         # rematerialized whole) for the backward pass — 8 GB at 16k rooms.
@@ -224,10 +195,9 @@ def ppo_loss(params, traj: Rollout, adv, ret, cfg: PPOConfig,
     logits = jnp.where(traj.legal, logits, jnp.float32(-1e9))
     logp_all = jax.nn.log_softmax(logits, axis=-1)
     a_idx = jnp.clip(traj.actions - 1, 0, logits.shape[-1] - 1)
-    # one-hot contraction, NOT take_along_axis: TPU lowers the per-element
-    # gather over the tiny action axis to a pathological kCustom kernel
-    # (~25 ms per epoch at 16k rooms — the same cliff as the engine's
-    # player-axis gathers, see CLAUDE.md invariant 3)
+    # one-hot contraction, not take_along_axis: the same no-gather rule
+    # as the engine's player-axis selects (CLAUDE.md invariant 3); whether
+    # a gather is cheaper on the GPU is an open measurement (ROADMAP)
     aoh = jax.nn.one_hot(a_idx, logits.shape[-1], dtype=logp_all.dtype)
     logp = jnp.sum(logp_all * aoh, axis=-1)
     ratio = jnp.exp(logp - traj.logp)
@@ -269,49 +239,20 @@ def team_masks(lowered: Lowered, state) -> jax.Array:
     return jnp.broadcast_to(seat1, state.present.shape) & state.present
 
 
-def make_loss_vg_fn(lowered: Lowered, cfg: PPOConfig):
-    """((loss, metrics), grads) via the MONOLITHIC fused loss-grad kernel
-    (fwd + in-kernel PPO cotangents + bwd in one pass over the rows —
-    value_and_grad over the kernel pair runs the forward twice,
-    docs/PERF.md round 5), or None when the config doesn't qualify.
-    Works for any Rollout mask, incl. the league's learner-seat mask."""
-    if not (cfg.fused_net and cfg.fused_loss
-            and cfg.net.arch in ("deepsets", "attn")):
-        return None
-    from game_engine_tpu.policies import fused as FZ
-
-    if not FZ.supports(lowered, cfg.net):
-        return None
-    _mono = FZ.make_loss_vg(lowered, cfg.net, cfg.clip,
-                            cfg.vf_coef, cfg.ent_coef)
-
-    def loss_vg(params, traj, adv, ret):
-        return _mono(params, traj.obs, traj.legal, traj.actions,
-                     traj.logp, adv, ret, traj.mask)
-
-    return loss_vg
-
-
 def make_train_step(lowered: Lowered, cfg: PPOConfig, tx: optax.GradientTransformation):
     unroll = make_unroll(lowered, cfg)
-    apply_fn = make_apply_fn(lowered, cfg)
 
     def loss_fn(params, traj, adv, ret):
         return ppo_loss(params, traj, adv, ret, cfg, lowered)
 
-    loss_vg = make_loss_vg_fn(lowered, cfg)
-
     def train_step(params, opt_state, state: GameState, key):
         state, key, traj = unroll(params, state, key)
-        _, last_v = apply_fn(params, N.observe(lowered, state))
+        _, last_v = N.apply_net(params, N.observe(lowered, state), cfg.net, lowered)
         adv, ret = gae(traj, last_v, cfg)
         loss, metrics = jnp.float32(0.0), {}  # epochs=0: rollout-only run
         for _ in range(cfg.epochs):
-            if loss_vg is not None:
-                (loss, metrics), grads = loss_vg(params, traj, adv, ret)
-            else:
-                (loss, metrics), grads = jax.value_and_grad(
-                    loss_fn, has_aux=True)(params, traj, adv, ret)
+            (loss, metrics), grads = jax.value_and_grad(
+                loss_fn, has_aux=True)(params, traj, adv, ret)
             updates, opt_state = tx.update(grads, opt_state, params)
             params = optax.apply_updates(params, updates)
         metrics = dict(metrics)

@@ -30,6 +30,7 @@ from game_engine_tpu.gamespec.tables import Lowered, lower, LGameOver
 from game_engine_tpu.policies import net as N
 from game_engine_tpu.train.ppo import PPOConfig, actor_mask, init_training, make_train_step, team_masks
 from game_engine_tpu.utils.checkpoint import save_tree
+from game_engine_tpu.utils.runtime import enable_compile_cache
 
 
 def make_eval(lowered: Lowered, cfg: PPOConfig, learned_side: bool, n_steps: int = 256):
@@ -67,6 +68,7 @@ def make_eval(lowered: Lowered, cfg: PPOConfig, learned_side: bool, n_steps: int
 
 
 def main(argv=None):
+    """Run training; returns (params, the last printed train metrics)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--game", default="werewolf")
     ap.add_argument("--batch", type=int, default=4096)
@@ -79,14 +81,6 @@ def main(argv=None):
     ap.add_argument("--loss-chunk", type=int, default=1,
                     help="timesteps per remat chunk in the deepsets/attn "
                          "loss recompute (memory vs dispatch overhead)")
-    ap.add_argument("--fused", dest="fused", action="store_true", default=None,
-                    help="use the fused Pallas fwd+bwd policy-net kernels "
-                         "(deepsets/attn, single-chip; see policies/fused.py). "
-                         "DEFAULT on single-device non-CPU runs with "
-                         "supported shapes — measured 3.1x on the attn "
-                         "update (docs/PERF.md round-4c)")
-    ap.add_argument("--no-fused", dest="fused", action="store_false",
-                    help="force the plain XLA policy net")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--eval-every", type=int, default=25)
     ap.add_argument("--eval-batch", type=int, default=1024)
@@ -102,31 +96,17 @@ def main(argv=None):
                     help="drop the scripted policy from the opponent pool. "
                          "With no weak anchor a long run's minority side can "
                          "RESIGN once the pool is uniformly strong "
-                         "(measured: werewolf 0.69 -> 0.02 by u350, "
-                         "docs/PERF.md round 4)")
+                         "(measured: werewolf 0.69 -> 0.02 by u350)")
     ap.add_argument("--league-dir", default="",
                     help="also save each league snapshot here (for the "
                          "evaluate --matchup win-rate matrix)")
     args = ap.parse_args(argv)
+    enable_compile_cache()
 
     lowered = lower(compile_game(load_builtin(args.game)))
     net_cfg = N.NetConfig(hidden=args.hidden, arch=args.arch)
-    fused = args.fused
-    if fused is None:
-        # auto: the fused kernels won 3.1x (attn update) / 1.7x (deepsets)
-        # on chip (docs/PERF.md round-4c). Off on CPU (interpret mode is a
-        # parity device, not a fast path) and under multi-device sharding
-        # (the kernels are a per-shard lever; run.py shards nothing).
-        from game_engine_tpu.policies import fused as FZ
-
-        fused = (jax.default_backend() != "cpu" and jax.device_count() == 1
-                 and FZ.supports(lowered, net_cfg))
-        if fused:
-            print(json.dumps({"event": "fused_net", "mode": "auto",
-                              "disable_with": "--no-fused"}))
     cfg = PPOConfig(horizon=args.horizon, epochs=args.epochs, lr=args.lr,
-                    loss_chunk=args.loss_chunk, fused_net=fused,
-                    net=net_cfg)
+                    loss_chunk=args.loss_chunk, net=net_cfg)
     key = jax.random.PRNGKey(args.seed)
     params, opt_state, tx = init_training(lowered, cfg, key)
     if args.resume:
@@ -134,22 +114,31 @@ def main(argv=None):
 
         params = load_tree(args.resume, params)
         print(json.dumps({"event": "resume", "from": args.resume}))
-    league = rng = league_step = anchor_step = None
+    state = init_state(lowered, args.batch, args.players,
+                       np.arange(args.batch, dtype=np.uint32))
+    # every program the loop runs is compiled here, so the timed window
+    # below holds no compilation
+    t_compile = time.perf_counter()
+    league = rng = league_step = anchor_step = train_step = None
     if args.league:
         from game_engine_tpu.train.league import League, make_league_train_step
 
         league = League(snapshot_every=args.league_snapshot_every,
                         anchor=args.league_anchor)
         league.maybe_snapshot(params)
-        league_step = jax.jit(make_league_train_step(lowered, cfg, tx))
+        league_step = jax.jit(make_league_train_step(lowered, cfg, tx)).lower(
+            params, params, opt_state, state, key).compile()
         if args.league_anchor:
-            anchor_step = jax.jit(
-                make_league_train_step(lowered, cfg, tx, scripted_opponent=True))
+            anchor_step = jax.jit(make_league_train_step(
+                lowered, cfg, tx, scripted_opponent=True)).lower(
+                params, params, opt_state, state, key).compile()
         rng = np.random.default_rng(args.seed)
-    # donation keeps params/opt/state/key in place across updates
-    train_step = jax.jit(make_train_step(lowered, cfg, tx), donate_argnums=(0, 1, 2, 3))
-    state = init_state(lowered, args.batch, args.players,
-                       np.arange(args.batch, dtype=np.uint32))
+    else:
+        # donation keeps params/opt/state/key in place across updates
+        train_step = jax.jit(make_train_step(lowered, cfg, tx),
+                             donate_argnums=(0, 1, 2, 3)).lower(
+            params, opt_state, state, key).compile()
+    compile_s = time.perf_counter() - t_compile
     evals = {
         "learned_as_minority": make_eval(lowered, cfg, learned_side=True),
         "learned_as_majority": make_eval(lowered, cfg, learned_side=False),
@@ -168,7 +157,8 @@ def main(argv=None):
         return out
 
     print(json.dumps({"event": "eval", "update": 0, **run_evals()}))
-    t0 = time.time()
+    t0 = None  # the steady window opens once update 1 is done
+    last = {}
     for u in range(1, args.updates + 1):
         if league is not None:
             opp_idx, opp = league.sample_opponent(rng)
@@ -193,17 +183,24 @@ def main(argv=None):
             metrics["pool_size"] = len(league.params_pool)
         else:
             params, opt_state, state, key, metrics = train_step(params, opt_state, state, key)
+        if u == 1:
+            jax.block_until_ready(metrics)
+            t0 = time.perf_counter()
         if u % 10 == 0 or u == args.updates:
-            m = {k: round(float(v), 4) for k, v in metrics.items()}
-            m.update(event="train", update=u,
-                     steps_per_sec=round(u * args.horizon * args.batch / (time.time() - t0), 1))
+            m = {k: round(float(v), 4) for k, v in metrics.items()}  # host sync
+            # steps_per_sec: the steady rate over the updates after the first
+            m.update(event="train", update=u, compile_s=round(compile_s, 3))
+            if u > 1:
+                m["steps_per_sec"] = round((u - 1) * args.horizon * args.batch
+                                           / (time.perf_counter() - t0), 1)
             print(json.dumps(m))
+            last = m
         if u % args.eval_every == 0 or u == args.updates:
             print(json.dumps({"event": "eval", "update": u, **run_evals()}))
             if args.checkpoint:
                 save_tree(f"{args.checkpoint}_u{u}", params,
                           meta={"attn_heads": cfg.net.attn_heads})
-    return params
+    return params, last
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Round-robin arena over mixed bot tiers, with Elo ratings.
 
-`train/evaluate.py --matchup` compares LEARNED checkpoints on the TPU
+`train/evaluate.py --matchup` compares LEARNED checkpoints on the device
 batch path; this arena compares ANY serving tiers — scripted, lookahead
 search, information-set (determinized) search, and learned checkpoints —
 pairwise on the native backend, the way rooms actually serve them. Every
@@ -20,8 +20,8 @@ Tiers (repeatable, order = table order):
     <path>.npz          a learned checkpoint (policies/serve.py greedy)
 
 Defaults: werewolf, 100 rooms, tiers = scripted search search-det8.
-Runs on the CPU platform (host-side eval; set ARENA_TPU=1 to put the
-learned forward on the chip). Deterministic: fixed seeds throughout.
+Runs on the CPU platform (host-side eval; set ARENA_ON_DEVICE=1 to put
+the learned forward on the accelerator). Deterministic: fixed seeds throughout.
 """
 
 from __future__ import annotations
@@ -118,7 +118,7 @@ def run_arena(game: str, rooms: int, tier_specs: list[str]) -> dict:
 
 
 def main() -> None:
-    if os.environ.get("ARENA_TPU") != "1":
+    if os.environ.get("ARENA_ON_DEVICE") != "1":
         import jax
 
         jax.config.update("jax_platforms", "cpu")

@@ -3,7 +3,7 @@
 The reference persists in-flight game state in LangGraph platform threads
 (reference: agent/game_agent_v2.py:1586-1587) and lobby state in
 temp-rooms.json (reference: src/lib/storage/memory.ts:48-127). The
-TPU-native equivalents:
+equivalents here:
 
   * ``save_state``/``load_state`` — device->host checkpoint of the GameState
     pytree as npz, step-indexed; also used for PPO training state via

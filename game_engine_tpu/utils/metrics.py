@@ -2,7 +2,7 @@
 
 The reference's observability is verbose per-node logging to a hardcoded
 directory (reference: agent/game_agent_v2.py:60-93) plus optional LangSmith.
-TPU-native equivalents: on-device metric reduction (cheap sums over the
+Equivalents here: on-device metric reduction (cheap sums over the
 rooms axis, psum-ready under pjit), a host-side throughput meter, and a
 ``jax.profiler`` trace context for real timeline profiling.
 """

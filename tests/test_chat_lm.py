@@ -1,4 +1,4 @@
-"""The tiny on-TPU chat LM (policies/chat_lm.py): encoding round-trips,
+"""The tiny on-device chat LM (policies/chat_lm.py): encoding round-trips,
 training signal, deterministic decoding, and the ChatRoom lm_hook seam —
 the learned tier of the reference's ChatBotNode (reference:
 agent/game_agent_v2.py:351-466)."""

@@ -80,15 +80,7 @@ def test_cpp_parity(cult):
         run_differential(cult, n_players=6, seed=seed, max_steps=600)
 
 
-def test_pallas_parity(cult):
-    from game_engine_tpu.core.pallas_rollout import make_pallas_rollout
-    from tests.test_pallas import _states_equal
+def test_cult_batch_split_invariance(cult):
+    from tests.rollout_helpers import assert_batch_split_invariant
 
-    B, steps = 8, 80
-    state = init_state(cult, B, 6, np.arange(B, dtype=np.uint32))
-    ref_state, ref_eps = compiled_rollout(cult, steps)(state)
-    pal = make_pallas_rollout(cult, steps, block_rooms=8, interpret=True)
-    state2 = init_state(cult, B, 6, np.arange(B, dtype=np.uint32))
-    pal_state, pal_eps = pal(state2)
-    _states_equal(ref_state, pal_state)
-    assert int(ref_eps) == int(pal_eps) and int(ref_eps) > 0
+    assert_batch_split_invariant(cult, n_players=6, steps=80)

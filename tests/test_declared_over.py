@@ -98,15 +98,7 @@ def test_cpp_parity(potlatch):
         run_differential(potlatch, n_players=5, seed=seed, max_steps=400)
 
 
-def test_pallas_parity(potlatch):
-    from game_engine_tpu.core.pallas_rollout import make_pallas_rollout
-    from tests.test_pallas import _states_equal
+def test_potlatch_batch_split_invariance(potlatch):
+    from tests.rollout_helpers import assert_batch_split_invariant
 
-    B, steps = 8, 60
-    ref_state, ref_eps = compiled_rollout(potlatch, steps)(
-        init_state(potlatch, B, 4, np.arange(B, dtype=np.uint32)))
-    pal = make_pallas_rollout(potlatch, steps, block_rooms=8, interpret=True)
-    pal_state, pal_eps = pal(
-        init_state(potlatch, B, 4, np.arange(B, dtype=np.uint32)))
-    _states_equal(ref_state, pal_state)
-    assert int(ref_eps) == int(pal_eps) and int(ref_eps) > 0
+    assert_batch_split_invariant(potlatch, n_players=4, steps=60)

@@ -1,9 +1,9 @@
-"""Multi-process (DCN) + sharded-scale evidence (VERDICT r2 item 6).
+"""Multi-process + sharded-scale evidence (VERDICT r2 item 6).
 
 (a) A REAL 2-process jax.distributed run on the CPU backend: each process
     contributes 4 local devices, the ('data','model') mesh spans all 8
     global devices, and the batched werewolf engine rolls out SHARDED
-    ACROSS PROCESS BOUNDARIES (Gloo collectives standing in for DCN) —
+    ACROSS PROCESS BOUNDARIES (Gloo collectives standing in for the network) —
     exercising parallel/mesh.initialize_multihost end to end. Both
     processes must agree with each other AND with the single-process
     8-virtual-device run bit-for-bit.
@@ -11,7 +11,8 @@
     sharded update on the 8-device mesh, timed against 1 device. On a CPU
     host the virtual devices share the same cores, so parity — not
     speedup — is the honest bar: the sharded program must not pay a
-    collective penalty. (Real scaling is an ICI property; docs/PERF.md.)
+    collective penalty. (Real scaling is measured on four cards by
+    `chip_smoke.py --four-cards`.)
 """
 
 import socket
@@ -115,7 +116,7 @@ def test_sixteen_k_room_league_update_sharded(league_timing=None):
     on the 8-device mesh vs 1 device. The sharded program must run to
     completion with real episodes and must not pay a collective penalty
     (CPU virtual devices share cores, so ~parity is the expected shape;
-    ICI scaling is measured on hardware, docs/PERF.md)."""
+    scaling is measured on hardware by `chip_smoke.py --four-cards`)."""
     import jax
     import optax  # noqa: F401 — league imports require it
 

@@ -390,22 +390,11 @@ def test_cpp_parity(effect_game):
                          max_steps=400)
 
 
-def test_pallas_parity(effect_game):
-    from game_engine_tpu.core.pallas_rollout import make_pallas_rollout
-    from tests.test_pallas import _states_equal
+def test_batch_split_invariance(effect_game):
+    from tests.rollout_helpers import assert_batch_split_invariant
 
-    name, lowered = effect_game
-    B, steps = 8, 60
-    state = init_state(lowered, B, min(5, lowered.P),
-                       np.arange(B, dtype=np.uint32))
-    ref_state, ref_eps = compiled_rollout(lowered, steps)(state)
-    pal = make_pallas_rollout(lowered, steps, block_rooms=8, interpret=True)
-    state2 = init_state(lowered, B, min(5, lowered.P),
-                        np.arange(B, dtype=np.uint32))
-    pal_state, pal_eps = pal(state2)
-    _states_equal(ref_state, pal_state)
-    assert int(ref_eps) == int(pal_eps)
-    assert int(ref_eps) > 0
+    _name, lowered = effect_game
+    assert_batch_split_invariant(lowered, min(5, lowered.P), steps=60)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,9 @@
 """Golden oracle traces: pin the observable semantics of every shipped
 game across code changes.
 
-The 4-way parity suite (tests/test_parity.py, test_native.py,
-test_pallas.py) proves the executors agree with EACH OTHER — but a
-semantic change applied uniformly to all four (e.g. re-expressing a
+The 3-way parity suite (tests/test_parity.py, test_native.py) proves
+the executors agree with EACH OTHER — but a semantic change applied
+uniformly to all three (e.g. re-expressing a
 bespoke mechanic family as an effect-IR program) would slip through it.
 This fixture pins the oracle's full per-step trace hashes for every
 catalog game so any such drift is loud: a mechanics migration must

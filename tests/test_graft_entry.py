@@ -2,6 +2,7 @@
 dryrun_multichip executes the full dp+tp train step on the virtual mesh."""
 
 import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -9,7 +10,7 @@ import pytest
 
 
 def test_entry_compiles_and_runs():
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import __graft_entry__ as g
 
     fn, args = g.entry()
@@ -22,7 +23,7 @@ def test_entry_compiles_and_runs():
 
 
 def test_dryrun_multichip_8():
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import __graft_entry__ as g
 
     out = g.dryrun_multichip(8)  # raises on failure

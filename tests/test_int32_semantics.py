@@ -1,9 +1,9 @@
 """ADVICE r3 regressions: the effect IR's pinned int32 value domain.
 
-All four executors must agree BIT-IDENTICALLY even when a DSL-declared
+All three executors must agree BIT-IDENTICALLY even when a DSL-declared
 program overflows int32 (the oracle previously computed in unbounded
 Python ints), and the max/argmax reductions must be exact for ALL int32
-keys including INT32_MIN (the XLA/Pallas adapters previously used a
+keys including INT32_MIN (the XLA adapter previously used a
 narrowed -(2**31)+1 sentinel). Also pins the loud ceilings: out-of-int32
 literals and >=63-phase chose() masks refuse to compile, and a malformed
 effects program fails GAME COMPILATION (the serving path runs no
@@ -112,22 +112,6 @@ def test_cpp_overflow_parity(wrap_game):
         assert_cpp_matches_oracle(lowered, room, cpp, t)
 
 
-def test_pallas_overflow_parity(wrap_game):
-    from game_engine_tpu.core.pallas_rollout import make_pallas_rollout
-    from tests.test_pallas import _states_equal
-
-    lowered = wrap_game
-    B, steps = 8, 16
-    ref_state, _ = compiled_rollout(lowered, steps)(
-        init_state(lowered, B, 4, np.arange(B, dtype=np.uint32)))
-    pal = make_pallas_rollout(lowered, steps, block_rooms=8, interpret=True)
-    pal_state, _ = pal(init_state(lowered, B, 4, np.arange(B, dtype=np.uint32)))
-    _states_equal(ref_state, pal_state)
-    # the INT32_MIN/argmax/overflow program actually ran under Pallas
-    nslot = lowered.game.layout.num_index("gifts_received")
-    assert int(np.asarray(pal_state.nums)[0, 0, nslot]) == EXPECT["gifts_received"]
-
-
 def test_out_of_range_literal_rejected():
     spec = load_builtin("gold-rush")
     game = compile_game(spec)
@@ -173,3 +157,11 @@ def test_phase_mask_ceiling_is_loud():
     spec = parse_game_spec(doc, name="tall")
     with pytest.raises(ValueError, match="63 phases"):
         lower(compile_game(spec))
+
+
+def test_overflow_batch_split_invariance(wrap_game):
+    """The wrapping program's rooms step identically in any batch split."""
+    from tests.rollout_helpers import assert_batch_split_invariant
+
+    assert_batch_split_invariant(wrap_game, n_players=4, steps=16,
+                                 expect_episodes=False)

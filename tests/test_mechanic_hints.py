@@ -289,20 +289,6 @@ def test_circle_cpp_parity(circle):
         run_differential(circle, n_players=6, seed=seed, max_steps=400)
 
 
-def test_circle_pallas_parity(circle):
-    from game_engine_tpu.core.pallas_rollout import make_pallas_rollout
-    from tests.test_pallas import _states_equal
-
-    B, steps = 8, 48
-    state = init_state(circle, B, 6, np.arange(B, dtype=np.uint32))
-    ref_state, ref_eps = compiled_rollout(circle, steps)(state)
-    pal = make_pallas_rollout(circle, steps, block_rooms=8, interpret=True)
-    state2 = init_state(circle, B, 6, np.arange(B, dtype=np.uint32))
-    pal_state, pal_eps = pal(state2)
-    _states_equal(ref_state, pal_state)
-    assert int(ref_eps) == int(pal_eps) and int(ref_eps) > 0
-
-
 @pytest.mark.parametrize("archetype,desc,extras", [
     ("elimination", "hidden-role night elimination game", ()),
     ("rounds", "turn-based storytelling guessing game", ()),
@@ -340,3 +326,9 @@ def test_builtin_games_unaffected():
     for g in ("werewolf", "two-truths-and-a-lie"):
         spec = load_builtin(g)
         assert all(not ph.mechanic_hints for ph in spec.phases.values())
+
+
+def test_circle_batch_split_invariance(circle):
+    from tests.rollout_helpers import assert_batch_split_invariant
+
+    assert_batch_split_invariant(circle, n_players=6, steps=48)

@@ -169,23 +169,6 @@ def test_cpp_parity_mix(goldrush):
                          max_steps=600)
 
 
-def test_pallas_parity_mix(goldrush):
-    from game_engine_tpu.core.pallas_rollout import make_pallas_rollout
-    from tests.test_pallas import _states_equal
-
-    B, steps = 8, 48
-    state = init_state(goldrush, B, min(6, goldrush.P),
-                       np.arange(B, dtype=np.uint32))
-    ref_state, ref_eps = compiled_rollout(goldrush, steps)(state)
-    pal = make_pallas_rollout(goldrush, steps, block_rooms=8, interpret=True)
-    state2 = init_state(goldrush, B, min(6, goldrush.P),
-                        np.arange(B, dtype=np.uint32))
-    pal_state, pal_eps = pal(state2)
-    _states_equal(ref_state, pal_state)
-    assert int(ref_eps) == int(pal_eps)
-    assert int(ref_eps) > 0
-
-
 BOUNTY_ARENA_DESC = (
     "Gladiators vote one of their own out of the arena each round, collect "
     "bounty coins, and raid each other's purses; be the last one standing "
@@ -244,23 +227,6 @@ def test_cpp_parity_battle_market(bounty):
     for seed in (0, 2):
         run_differential(bounty, n_players=min(6, bounty.P), seed=seed,
                          max_steps=800)
-
-
-def test_pallas_parity_battle_market(bounty):
-    from game_engine_tpu.core.pallas_rollout import make_pallas_rollout
-    from tests.test_pallas import _states_equal
-
-    B, steps = 8, 48
-    state = init_state(bounty, B, min(6, bounty.P),
-                       np.arange(B, dtype=np.uint32))
-    ref_state, ref_eps = compiled_rollout(bounty, steps)(state)
-    pal = make_pallas_rollout(bounty, steps, block_rooms=8, interpret=True)
-    state2 = init_state(bounty, B, min(6, bounty.P),
-                        np.arange(B, dtype=np.uint32))
-    pal_state, pal_eps = pal(state2)
-    _states_equal(ref_state, pal_state)
-    assert int(ref_eps) == int(pal_eps)
-    assert int(ref_eps) > 0
 
 
 def test_catalog_bounty_arena_matches_generator():
@@ -352,20 +318,6 @@ def test_cpp_parity_auction_mix(relic):
         run_differential(relic, n_players=7, seed=seed, max_steps=900)
 
 
-def test_pallas_parity_auction_mix(relic):
-    from game_engine_tpu.core.pallas_rollout import make_pallas_rollout
-    from tests.test_pallas import _states_equal
-
-    B, steps = 8, 48
-    state = init_state(relic, B, 7, np.arange(B, dtype=np.uint32))
-    ref_state, ref_eps = compiled_rollout(relic, steps)(state)
-    pal = make_pallas_rollout(relic, steps, block_rooms=8, interpret=True)
-    state2 = init_state(relic, B, 7, np.arange(B, dtype=np.uint32))
-    pal_state, pal_eps = pal(state2)
-    _states_equal(ref_state, pal_state)
-    assert int(ref_eps) == int(pal_eps) and int(ref_eps) > 0
-
-
 def test_catalog_relic_auction_matches_generator():
     import os
 
@@ -441,15 +393,10 @@ def test_cpp_parity_battle_auction(trophy):
         run_differential(trophy, n_players=6, seed=seed, max_steps=900)
 
 
-def test_pallas_parity_battle_auction(trophy):
-    from game_engine_tpu.core.pallas_rollout import make_pallas_rollout
-    from tests.test_pallas import _states_equal
+@pytest.mark.parametrize("fixture,n_players", [
+    ("goldrush", 6), ("bounty", 6), ("relic", 7), ("trophy", 6)])
+def test_mix_batch_split_invariance(fixture, n_players, request):
+    from tests.rollout_helpers import assert_batch_split_invariant
 
-    B, steps = 8, 48
-    state = init_state(trophy, B, 6, np.arange(B, dtype=np.uint32))
-    ref_state, ref_eps = compiled_rollout(trophy, steps)(state)
-    pal = make_pallas_rollout(trophy, steps, block_rooms=8, interpret=True)
-    state2 = init_state(trophy, B, 6, np.arange(B, dtype=np.uint32))
-    pal_state, pal_eps = pal(state2)
-    _states_equal(ref_state, pal_state)
-    assert int(ref_eps) == int(pal_eps) and int(ref_eps) > 0
+    lowered = request.getfixturevalue(fixture)
+    assert_batch_split_invariant(lowered, min(n_players, lowered.P), steps=48)

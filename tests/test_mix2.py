@@ -266,7 +266,7 @@ def test_catalog_witness_matches_generator(name, desc):
 
 
 # ---------------------------------------------------------------------------
-# native + pallas parity spot checks
+# native parity and batch-split spot checks
 # ---------------------------------------------------------------------------
 
 
@@ -281,19 +281,7 @@ def test_cpp_parity_new_mixes(storypot, gilded):
     run_differential(gilded, n_players=6, seed=0, max_steps=900)
 
 
-def test_pallas_parity_rally(rally):
-    import numpy as np
+def test_rally_batch_split_invariance(rally):
+    from tests.rollout_helpers import assert_batch_split_invariant
 
-    from game_engine_tpu.core.engine import compiled_rollout
-    from game_engine_tpu.core.pallas_rollout import make_pallas_rollout
-    from game_engine_tpu.core.state import init_state
-    from tests.test_pallas import _states_equal
-
-    B, steps = 8, 48
-    state = init_state(rally, B, 5, np.arange(B, dtype=np.uint32))
-    ref_state, ref_eps = compiled_rollout(rally, steps)(state)
-    pal = make_pallas_rollout(rally, steps, block_rooms=8, interpret=True)
-    state2 = init_state(rally, B, 5, np.arange(B, dtype=np.uint32))
-    pal_state, pal_eps = pal(state2)
-    _states_equal(ref_state, pal_state)
-    assert int(ref_eps) == int(pal_eps) and int(ref_eps) > 0
+    assert_batch_split_invariant(rally, n_players=5, steps=48)

@@ -182,19 +182,7 @@ def test_cpp_parity_stack(harbor):
         run_differential(harbor, n_players=7, seed=seed, max_steps=900)
 
 
-def test_pallas_parity_stack(harbor):
-    import numpy as np
+def test_harbor_batch_split_invariance(harbor):
+    from tests.rollout_helpers import assert_batch_split_invariant
 
-    from game_engine_tpu.core.engine import compiled_rollout
-    from game_engine_tpu.core.pallas_rollout import make_pallas_rollout
-    from game_engine_tpu.core.state import init_state
-    from tests.test_pallas import _states_equal
-
-    B, steps = 8, 48
-    state = init_state(harbor, B, 7, np.arange(B, dtype=np.uint32))
-    ref_state, ref_eps = compiled_rollout(harbor, steps)(state)
-    pal = make_pallas_rollout(harbor, steps, block_rooms=8, interpret=True)
-    state2 = init_state(harbor, B, 7, np.arange(B, dtype=np.uint32))
-    pal_state, pal_eps = pal(state2)
-    _states_equal(ref_state, pal_state)
-    assert int(ref_eps) == int(pal_eps) and int(ref_eps) > 0
+    assert_batch_split_invariant(harbor, n_players=7, steps=48)

@@ -95,6 +95,26 @@ def test_cpp_selfplay_throughput():
     print(f"\ncpp selfplay: {sps/1e6:.2f}M steps/s, {episodes/dt:.0f} episodes/s")
 
 
+@pytest.mark.parametrize("game,n_players,steps", [
+    ("werewolf", 8, 300), ("storm-forge", 5, 200), ("masquerade-gala", 6, 200)])
+def test_batched_rollout_matches_cpp_selfplay(game, n_players, steps):
+    """The XLA auto-reset rollout and the C++ batched self-play agree on
+    every room's final state (seed included) and on the episode count."""
+    import jax
+
+    from game_engine_tpu.core.engine import make_rollout
+    from game_engine_tpu.core.state import init_state
+    from game_engine_tpu.native import state_rows
+
+    lowered = lower(compile_game(load_builtin(game)))
+    rooms = 16
+    state, eps = jax.jit(make_rollout(lowered, steps, auto_reset=True))(
+        init_state(lowered, rooms, n_players, np.arange(rooms, dtype=np.uint32)))
+    cpp_eps, cpp_rows = CppGame(lowered).selfplay_states(rooms, n_players, 0, steps)
+    assert int(eps) == cpp_eps > 0
+    np.testing.assert_array_equal(state_rows(state), cpp_rows)
+
+
 def _catalog_games():
     import os
 

@@ -252,21 +252,6 @@ def test_cpp_parity(shield_wall):
         run_differential(shield_wall, n_players=5, seed=seed, max_steps=400)
 
 
-def test_pallas_parity(shield_wall):
-    from game_engine_tpu.core.pallas_rollout import make_pallas_rollout
-    from tests.test_pallas import _states_equal
-
-    B, steps = 8, 80
-    state = init_state(shield_wall, B, 5, np.arange(B, dtype=np.uint32))
-    ref_state, ref_eps = compiled_rollout(shield_wall, steps)(state)
-    pal = make_pallas_rollout(shield_wall, steps, block_rooms=8,
-                              interpret=True)
-    state2 = init_state(shield_wall, B, 5, np.arange(B, dtype=np.uint32))
-    pal_state, pal_eps = pal(state2)
-    _states_equal(ref_state, pal_state)
-    assert int(ref_eps) == int(pal_eps)
-
-
 # ---------------------------------------------------------------------------
 # validator discipline
 # ---------------------------------------------------------------------------
@@ -287,3 +272,9 @@ def test_validator_rejects_unknown_hint_arg():
     issues, _ = validate_doc(doc, name="bad2")
     assert any("unknown" in str(i) for i in issues
                if i.severity == "error")
+
+
+def test_shield_wall_batch_split_invariance(shield_wall):
+    from tests.rollout_helpers import assert_batch_split_invariant
+
+    assert_batch_split_invariant(shield_wall, n_players=5, steps=80)
